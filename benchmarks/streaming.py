@@ -1,10 +1,8 @@
 """Streaming cohort end-to-end benchmark with cost decomposition.
 
-Round-2 measured 2.5 subj/s end-to-end on a device capable of ~340 vol/s
-and could not say how much was the dispatch-thread overflow sync vs tunnel
-decode/export I/O (VERDICT weak #3).  The driver now dispatches batch N+1
-before batch N's flags are read (ventjax/pipeline/cohort.py dispatch +
-retry queue); this harness reports the split directly:
+The driver dispatches batch N+1 before batch N's flags are read
+(ventjax/pipeline/cohort.py dispatch + retry queue); this harness splits
+end-to-end cohort time into ingest, device and export:
 
   decode_only   — host DICOM decode throughput (the ingest bound)
   compute_only  — full driver loop with subject writes no-op'd

@@ -1,120 +1,133 @@
-"""Pallas CI head kernel: bit-equality against the XLA head phase.
+"""CI head kernel (ventjax/ops/ci_pallas.py): bit-equality with the XLA head.
 
-The kernel (ventjax/ops/ci_pallas.py) computes the same f32 expressions as
-ci_pairwise's head blocks; counts are exact small-integer float sums, so
-results must be BIT-equal, wrap and pad border modes alike.  On CPU the
-kernel runs in interpreter mode; the TPU path is exercised by bench runs.
+The kernel computes the same f32 expressions as ci_pairwise's head blocks
+and counts exact integers, so results must be BIT-equal, wrap and pad
+border modes alike.  On the CPU the kernel runs in the Pallas interpreter
+(``interpret=True``); on the GPU it is compiled through Triton and checked
+by chip_smoke.py.
 """
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
+from ventjax.ops import ci_pairwise as cp
 from ventjax.ops.ci_pairwise import (
     build_ci_pairwise_geometry, calculate_ci_pairwise,
 )
 
+SHAPE = (32, 32, 8)
 
+
+def _defect(kind):
+    d = np.zeros(SHAPE, np.float32)
+    if kind == "clustered":
+        rng = np.random.default_rng(3)
+        d = (rng.random(SHAPE) > 0.985).astype(np.float32)
+        d[8:14, 8:14, 2:5] = 1.0
+    elif kind == "full":
+        d[:] = 1.0
+    elif kind == "corner":
+        # touches every border, so the wrap aliases carry the counts
+        d[:4, :4, :2] = 1.0
+        d[-3:, -3:, -2:] = 1.0
+        d[0, -1, 0] = d[-1, 0, -1] = 1.0
+    return d
+
+
+@pytest.mark.parametrize("kind", ["clustered", "empty", "full", "corner"])
+@pytest.mark.parametrize("K", [256, 250])
 @pytest.mark.parametrize("border", ["wrap", "pad"])
-def test_pallas_head_bit_equal(border):
-    shape = (32, 32, 8)
-    geom = build_ci_pairwise_geometry((1.5, 1.5, 10.0), shape, 12, border)
-    rng = np.random.default_rng(3)
-    defect = (rng.random(shape) > 0.97).astype(np.float32)
-    # clustered blob to exercise non-trivial crossings
-    defect[8:14, 8:14, 2:5] = 1.0
-    d = jnp.asarray(defect)
-
-    ci_x, sat_x, ovf_x = calculate_ci_pairwise(d, geom, 256, use_pallas=False)
-    ci_p, sat_p, ovf_p = calculate_ci_pairwise(d, geom, 256, use_pallas=True)
+def test_head_kernel_bit_equal(border, K, kind):
+    """K=250 is not a multiple of the kernel's center or witness blocks;
+    "full" overflows the pad, so sentinel and real lanes mix."""
+    geom = build_ci_pairwise_geometry((1.5, 1.5, 10.0), SHAPE, 12, border)
+    d = jnp.asarray(_defect(kind))
+    ci_x, sat_x, ovf_x = calculate_ci_pairwise(d, geom, K, use_pallas=False)
+    ci_p, sat_p, ovf_p = calculate_ci_pairwise(
+        d, geom, K, use_pallas=True, interpret=True)
     np.testing.assert_array_equal(np.asarray(ci_x), np.asarray(ci_p))
     assert int(sat_x) == int(sat_p)
     assert bool(ovf_x) == bool(ovf_p)
+    if kind == "empty":
+        assert float(jnp.sum(ci_p)) == 0.0
 
 
-def test_pallas_head_empty_and_full():
-    shape = (32, 32, 8)
-    geom = build_ci_pairwise_geometry((1.5, 1.5, 10.0), shape, 12, "wrap")
-    empty = jnp.zeros(shape, jnp.float32)
-    ci_x, _, _ = calculate_ci_pairwise(empty, geom, 256, use_pallas=False)
-    ci_p, _, _ = calculate_ci_pairwise(empty, geom, 256, use_pallas=True)
-    np.testing.assert_array_equal(np.asarray(ci_x), np.asarray(ci_p))
-    assert float(jnp.sum(ci_p)) == 0.0
+def test_head_kernel_first_fail_matches_xla_head_rows():
+    """The kernel's per-row output (first failing head ball, ns = none)
+    against the XLA head's (resolved, argmax) on witness sets that differ
+    from the centers, as in the slice-sharded engine."""
+    from ventjax.ops.ci_pallas import head_first_fail_pallas
 
-    full = jnp.ones(shape, jnp.float32)
-    # 8192 defect voxels at K=8192: saturation path
-    ci_xf, sat_xf, _ = calculate_ci_pairwise(full, geom, 8192,
-                                             use_pallas=False)
-    ci_pf, sat_pf, _ = calculate_ci_pairwise(full, geom, 8192,
-                                             use_pallas=True)
-    np.testing.assert_array_equal(np.asarray(ci_xf), np.asarray(ci_pf))
-    assert int(sat_xf) == int(sat_pf)
-
-
-def test_densify_rank_matches_scatter():
-    import numpy as np
-    import jax.numpy as jnp
-    from ventjax.ops.ci_pallas import densify_rank_pallas
-
-    rng = np.random.default_rng(11)
-    V, K = 8192, 512
-    d01 = (rng.random(V) < 0.03).astype(np.int32)   # ~246 defects < K
-    cv = rng.random(K).astype(np.float32)
-    n = int(d01.sum())
-
-    rank = jnp.cumsum(jnp.asarray(d01)) - 1
-    dense = np.asarray(densify_rank_pallas(
-        rank, jnp.asarray(d01), jnp.asarray(cv), K, interpret=True))
-
-    ref = np.zeros(V, np.float32)
-    ref[np.nonzero(d01)[0]] = cv[:n]
-    assert (dense == ref).all()
+    geom = build_ci_pairwise_geometry((1.5, 1.5, 10.0), SHAPE, 12, "wrap")
+    idx = np.flatnonzero(_defect("clustered"))
+    H, W, D = SHAPE
+    c = tuple(jnp.asarray(a.astype(np.int32)) for a in (
+        idx // (W * D), (idx // D) % W, idx % D))
+    w = tuple(jnp.concatenate([a, a[:37] + 1]) for a in c)
+    ns = min(96, geom.n_balls - 1)
+    first = head_first_fail_pallas(
+        *c, *w, combos=tuple(cp._alias_combos(geom)), scale=geom.scale,
+        r2=tuple(float(r) for r in geom.r2_32[:ns]),
+        t_head=tuple(int(t) for t in ((geom.rows_ball + 1) // 2)[:ns]),
+        rmax=geom.rmax, interpret=True)
+    dmin2 = np.asarray(cp._alias_min_d2(c, w, geom))
+    counts = (dmin2[:, :, None] <= geom.r2_32[None, None, :ns]).sum(1)
+    fail = counts < ((geom.rows_ball + 1) // 2)[None, :ns]
+    want = np.where(fail.any(1), fail.argmax(1), ns)
+    np.testing.assert_array_equal(np.asarray(first), want)
 
 
-def test_densify_rank_overflow_drops():
-    import numpy as np
-    import jax.numpy as jnp
-    from ventjax.ops.ci_pallas import densify_rank_pallas
+def test_auto_mode_never_picks_the_kernel_on_cpu(monkeypatch):
+    """Auto mode keys on the GPU backend: on the CPU it takes the XLA head
+    even past HEAD_KERNEL_MIN_K, so the kernel (which has no CPU lowering
+    outside the interpreter) is never reached."""
+    import ventjax.ops.ci_pallas as kernel_mod
 
-    rng = np.random.default_rng(12)
-    V, K = 4096, 64
-    d01 = (rng.random(V) < 0.05).astype(np.int32)   # ~205 defects > K
-    cv = rng.random(K).astype(np.float32)
+    def boom(*a, **k):
+        raise AssertionError("kernel selected on the CPU")
 
-    rank = jnp.cumsum(jnp.asarray(d01)) - 1
-    dense = np.asarray(densify_rank_pallas(
-        rank, jnp.asarray(d01), jnp.asarray(cv), K, interpret=True))
-
-    idx = np.nonzero(d01)[0]
-    ref = np.zeros(V, np.float32)
-    ref[idx[:K]] = cv            # voxels past K stay 0 (mode="drop" parity)
-    assert (dense == ref).all()
+    monkeypatch.setattr(kernel_mod, "head_first_fail_pallas", boom)
+    monkeypatch.setattr(cp, "HEAD_KERNEL_MIN_K", 0)
+    geom = build_ci_pairwise_geometry((1.5, 1.5, 10.0), SHAPE, 12, "wrap")
+    ci, _, ovf = calculate_ci_pairwise(jnp.asarray(_defect("clustered")),
+                                       geom, 256)
+    assert jax.default_backend() == "cpu"
+    assert not bool(ovf) and float(jnp.sum(ci)) > 0
 
 
-def test_rank_pallas_exact():
-    import numpy as np
-    import jax.numpy as jnp
-    from ventjax.ops.ci_pallas import rank_pallas
+def _find_eqns(jaxpr, name):
+    found = []
+    for e in jaxpr.eqns:
+        if e.primitive.name == name:
+            found.append(e)
+        for v in e.params.values():
+            sub = getattr(v, "jaxpr", v)
+            if hasattr(sub, "eqns"):
+                found += _find_eqns(sub, name)
+    return found
 
-    d = (np.random.default_rng(13).random(16384) < 0.1).astype(np.int32)
-    r = np.asarray(rank_pallas(jnp.asarray(d), interpret=True))
-    assert (r == np.cumsum(d) - 1).all()
 
+def test_kernel_wrapper_pads_to_its_blocks():
+    """Centers pad to the center block and witnesses to the witness block
+    with far sentinels; outputs come back at the caller's length."""
+    from ventjax.ops import ci_pallas as k
 
-def test_ci_pairwise_pallas_densify_end_to_end():
-    """pallas_densify=True must produce the identical CI map."""
-    import numpy as np
-    import jax.numpy as jnp
-    from ventjax.ops import ci_pairwise as cp
-
-    rng = np.random.default_rng(14)
-    shape = (64, 64, 8)
-    d = np.zeros(shape, np.float32)
-    d[20:28, 30:38, 2:5] = (rng.random((8, 8, 3)) < 0.7)
-    geom = cp.build_ci_pairwise_geometry(
-        (1.5, 1.5, 10.0), shape, border_mode="wrap")
-    a = cp.calculate_ci_pairwise(
-        jnp.asarray(d), geom, max_defect_voxels=256, pallas_densify=True)
-    b = cp.calculate_ci_pairwise(
-        jnp.asarray(d), geom, max_defect_voxels=256, pallas_densify=False)
-    assert (np.asarray(a[0]) == np.asarray(b[0])).all()
-    assert int(a[1]) == int(b[1])
+    geom = build_ci_pairwise_geometry((1.5, 1.5, 10.0), SHAPE, 12, "pad")
+    ns = min(96, geom.n_balls - 1)
+    n = k._RB + 3
+    c = tuple(jnp.arange(n, dtype=jnp.int32) % m for m in SHAPE)
+    w = tuple(x[: k._WB + 1] for x in c)
+    args = dict(combos=((0, 0, 0),), scale=geom.scale,
+                r2=tuple(float(r) for r in geom.r2_32[:ns]),
+                t_head=tuple(int(t) for t in ((geom.rows_ball + 1) // 2)[:ns]),
+                rmax=geom.rmax)
+    jaxpr = jax.make_jaxpr(
+        lambda *a: k.head_first_fail_pallas(*a, **args))(*c, *w)
+    (pc,) = _find_eqns(jaxpr.jaxpr, "pallas_call")
+    in_shapes = [v.aval.shape for v in pc.invars]
+    assert in_shapes[:3] == [(2 * k._RB,)] * 3
+    assert in_shapes[3:6] == [(2 * k._WB,)] * 3
+    assert in_shapes[6:] == [(2,)] * 4
+    out = k.head_first_fail_pallas(*c, *w, interpret=True, **args)
+    assert out.shape == (n,) and out.dtype == jnp.int32

@@ -236,28 +236,32 @@ def test_train_seg_and_auto_mask(tmp_path, capsys):
 
 def test_compile_cache_populates_and_disables(tmp_path, monkeypatch):
     """enable_compile_cache writes compiled programs to the persistent
-    cache dir (repeat CLI invocations skip the minutes-scale TPU compile,
-    docs/PERF.md); VENTJAX_NO_CACHE disables it."""
+    cache dir (repeat CLI invocations skip the compile); VENTJAX_NO_CACHE
+    disables it."""
     import jax
     import jax.numpy as jnp
 
-    from ventjax.utils.profiling import enable_compile_cache
+    from ventjax.utils import profiling
 
     d = str(tmp_path / "xla")
     monkeypatch.delenv("VENTJAX_NO_CACHE", raising=False)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(profiling, "default_compile_cache_dir", lambda: d)
     saved = {k: getattr(jax.config, k) for k in (
         "jax_compilation_cache_dir",
         "jax_persistent_cache_min_compile_time_secs",
         "jax_persistent_cache_min_entry_size_bytes",
     )}
     try:
-        assert enable_compile_cache(d) == d
+        assert profiling.enable_compile_cache() == d
         f = jax.jit(lambda x: x @ x.T + 2.0)
         np.asarray(f(jnp.ones((32, 32))))
         assert any("cache" in e for e in os.listdir(d))
 
         monkeypatch.setenv("VENTJAX_NO_CACHE", "1")
-        assert enable_compile_cache(str(tmp_path / "other")) is None
+        monkeypatch.setattr(profiling, "default_compile_cache_dir",
+                            lambda: str(tmp_path / "other"))
+        assert profiling.enable_compile_cache() is None
         assert not os.path.exists(str(tmp_path / "other"))
     finally:
         # tmp_path is deleted after the test; leaving the global cache
@@ -266,6 +270,63 @@ def test_compile_cache_populates_and_disables(tmp_path, monkeypatch):
             jax.config.update(k, v)
         from jax.experimental.compilation_cache import compilation_cache
         compilation_cache.reset_cache()
+
+
+def test_compile_cache_honours_jax_env_var(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads the variable itself:
+    enable_compile_cache reports it and sets no directory of its own."""
+    import jax
+
+    from ventjax.utils import profiling
+
+    d = str(tmp_path / "from_env")
+    monkeypatch.delenv("VENTJAX_NO_CACHE", raising=False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+    before = jax.config.jax_compilation_cache_dir
+    saved = {k: getattr(jax.config, k) for k in (
+        "jax_persistent_cache_min_compile_time_secs",
+        "jax_persistent_cache_min_entry_size_bytes",
+    )}
+    try:
+        assert profiling.enable_compile_cache() == d
+        assert jax.config.jax_compilation_cache_dir == before
+        assert not os.path.exists(d)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+
+
+def test_default_compile_cache_dir_is_fixed_in_checkout(tmp_path,
+                                                        monkeypatch):
+    """Without the env var the cache sits at one fixed path inside the
+    checkout holding the package, whatever the working directory."""
+    import ventjax
+    from ventjax.utils import profiling
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.delenv("VENTJAX_NO_CACHE", raising=False)
+    first = profiling.compile_cache_dir()
+    monkeypatch.chdir(tmp_path)
+    assert profiling.compile_cache_dir() == first
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ventjax.__file__)))
+    assert first == os.path.join(root, ".jax_cache")
+
+
+def test_enable_deterministic_sets_gpu_and_cpu_flags(monkeypatch):
+    """--deterministic appends the GPU determinism flag (and CPU fast math
+    off) to XLA_FLAGS once, keeping flags the user already set."""
+    from ventjax.utils.profiling import enable_deterministic
+
+    monkeypatch.setenv("XLA_FLAGS", "--xla_force_host_platform_device_count=8"
+                       " --xla_cpu_enable_fast_math=true")
+    enable_deterministic()
+    enable_deterministic()
+    flags = os.environ["XLA_FLAGS"].split()
+    assert flags.count("--xla_gpu_deterministic_ops=true") == 1
+    assert "--xla_force_host_platform_device_count=8" in flags
+    # the user's own fast-math choice is not overridden or duplicated
+    assert [f for f in flags if f.startswith("--xla_cpu_enable_fast_math")] \
+        == ["--xla_cpu_enable_fast_math=true"]
 
 
 def test_manifest_validation_errors(tmp_path):

@@ -150,7 +150,7 @@ def test_ci_module_shard_slices_config(rng):
 
 @pytest.mark.skipif(len(jax.devices()) < 4, reason="needs fake devices")
 def test_sharded_ci_two_phase_pallas_head_bit_equal(rng):
-    """The per-shard two-phase engine with the Pallas head kernel forced
+    """The per-shard two-phase engine with the head kernel forced
     (interpreted on CPU) stays bit-identical to the unsharded engine —
     the oversize-volume latency path exercises the same kernel as the
     single-chip severe-disease path."""
@@ -164,12 +164,12 @@ def test_sharded_ci_two_phase_pallas_head_bit_equal(rng):
     defect[10:16, 8:14, 10:16] = 1   # a cluster spanning a shard boundary
     defect[0, 0, 0] = 1
     geom = build_ci_pairwise_geometry(VOX, (H, W, D), 16, "wrap")
-    # K=512 centers per shard (% 128 == 0) and halo_pad=256/side ->
-    # 1024 witness lanes (% 512 == 0), so the kernel's tile constraints
-    # hold per shard.
+    # K=500 centers per shard and halo_pad=250/side: neither is a
+    # multiple of the kernel's blocks, so its padding runs per shard.
     ci_s, nsat_s, ovf_s = calculate_ci_sharded(
         jnp.asarray(defect), geom, n_shards=4,
-        max_defect_voxels=512, halo_pad=256, use_pallas=True,
+        max_defect_voxels=500, halo_pad=250, use_pallas=True,
+        interpret=True,
     )
     ci_u, nsat_u, _ = calculate_ci_pairwise(jnp.asarray(defect), geom, 2048)
     assert not bool(ovf_s)

@@ -633,9 +633,8 @@ def test_twix_64_measurement_multiraid_detected(tmp_path):
 
 
 def test_recon_matmul_dft_matches_fft_oracle():
-    """The recon is a centered DFT expressed as MXU matmuls on split
-    real/imag planes (no complex dtype on device — the target TPU
-    backend has none).  Pin it against the np.fft recipe the reference
+    """The recon is a centered DFT expressed as real matmuls on split
+    real/imag planes.  Pin it against the np.fft recipe the reference
     runs (Vent_Analysis.py:537-540) at non-square and non-power-of-two
     sizes, where a wrong shift permutation or transposed DFT matrix
     cannot hide."""

@@ -104,11 +104,11 @@ def test_orbax_checkpoint_roundtrip(tmp_path):
 
 
 def test_profiling_utils():
-    from ventjax.utils.profiling import stage, sync, timed
+    from ventjax.utils.profiling import stage, timed
 
     out = []
     with timed("x", sink=out.append):
         with stage("stage1"):
             y = jnp.ones((8, 8)) * 2
-        sync(y)
+        jax.block_until_ready(y)
     assert len(out) == 1 and "x:" in out[0]

@@ -65,31 +65,6 @@ def test_n4_mask_pad_overflow_flagged(phantom_small):
     assert not bool(ok)
 
 
-def test_n4_pallas_gates_fall_back_on_oversized_params(phantom_small):
-    """use_pallas=True with params exceeding the kernels' static padding
-    (ncp^2 > FP=128 at control_points=6 level 2, or bins+2 > 256) must
-    fall back to the XLA path instead of crashing at trace time
-    (round-2 advisor findings)."""
-    ph = phantom_small
-    img, mask = jnp.asarray(ph.hp), jnp.asarray(ph.mask)
-    # control_points=6 -> ncp = 6, 9, 15 across 3 levels; 15^2=225 > 128.
-    forced = np.asarray(n4_bias_correction(
-        img, mask, control_points=6, fitting_levels=3, use_pallas=True))
-    plain = np.asarray(n4_bias_correction(
-        img, mask, control_points=6, fitting_levels=3, use_pallas=False))
-    m0 = ph.mask > 0
-    rel0 = np.abs(forced[m0] - plain[m0]) / np.abs(plain[m0])
-    assert rel0.mean() < 2e-3  # ncp<=11 levels still run the bf16 kernels
-    # bins=300 exceeds the 256-slot Pallas sharpen table.
-    forced_b = np.asarray(n4_bias_correction(
-        img, mask, bins=300, use_pallas=True))
-    plain_b = np.asarray(n4_bias_correction(
-        img, mask, bins=300, use_pallas=False))
-    m = ph.mask > 0
-    rel = np.abs(forced_b[m] - plain_b[m]) / np.abs(plain_b[m])
-    assert rel.max() < 0.01  # fit kernels still engage; sharpen falls back
-
-
 def test_n4_identity_on_unbiased_flat_image(rng):
     """A flat image has no bias: the field should be ~constant."""
     img = np.full((32, 32, 4), 100.0, np.float32)

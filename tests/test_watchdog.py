@@ -1,7 +1,7 @@
 """Stall watchdog (utils/watchdog.py) + its cohort CLI plumbing.
 
 The production behavior under test is recovery from a wedged device
-tunnel: a runtime call blocked forever in native code, which no
+runtime: a call blocked forever in native code, which no
 exception handler can reach.  The watchdog makes the hang visible
 (thread stacks on stderr) and self-terminating (exit 86 for a
 supervisor), with .done markers making the restart exactly-once.

@@ -2,7 +2,7 @@
 
 Drop-in replacement for the reference class (Vent_Analysis.py:26-600): same
 constructor signature, attribute names, method names, and metadata keys —
-but every voxel computation dispatches to the jit-compiled TPU pipeline in
+but every voxel computation dispatches to the jit-compiled device pipeline in
 ventjax.ops / ventjax.pipeline instead of NumPy/SciPy/SimpleITK loops.
 
 Per-method reference citations sit on each method.  Behavioral deviations
@@ -41,7 +41,6 @@ from ventjax.ops import (
 from ventjax.oracle.reference import crop_to_data
 from ventjax.pipeline.analyze import build_geometry
 from ventjax.report import export as rexport
-from ventjax.report.screenshot import screenshot as _screenshot
 
 _METADATA_KEYS = [
     "fileName", "PatientName", "PatientAge", "PatientBirthDate", "PatientSex",
@@ -52,7 +51,7 @@ _METADATA_KEYS = [
 
 
 class Vent_Analysis:
-    """Reference-compatible ventilation analysis (TPU-backed).
+    """Reference-compatible ventilation analysis (device-backed).
 
     Mirrors the constructor dispatch of Vent_Analysis.py:58-166: arrays,
     DICOM paths, or a pickle (dict or path).
@@ -349,7 +348,11 @@ class Vent_Analysis:
         )
 
     def screenShot(self, path="screenShotTest.png", normalize95=False):
-        return _screenshot(
+        # Pillow (the "report" extra) is needed only here, so the facade
+        # imports without it.
+        from ventjax.report.screenshot import screenshot
+
+        return screenshot(
             path,
             hp=np.asarray(self.HPvent, np.float64),
             mask=np.asarray(self.mask, np.float64),

@@ -84,7 +84,7 @@ class VentConfig:
     # CI.py:101-104); saturation count is surfaced in StudyMetrics.
     ci_saturate_rmax: bool = True
     # CI engine: "pairwise" (order-statistics over pairwise defect-voxel
-    # distances; the TPU fast path, exactness guarded at geometry build),
+    # distances; the default, exactness guarded at geometry build),
     # "ladder" (stage-laddered indicator gathers), or "full" (flat gather
     # scan).  All three are exact; they differ only in speed.
     ci_engine: str = "pairwise"
@@ -112,11 +112,6 @@ class VentConfig:
     # StudyMetrics.n4_overflow and means excess voxels were ignored by the
     # fit — raise the pad if it ever fires.
     n4_mask_pad: int = 65536
-    # B-spline fit implementation: None = auto (Pallas VMEM kernels on TPU
-    # when the pad is PC-aligned, XLA outer-product matmuls otherwise);
-    # True/False force one path.  Both are oracle-validated
-    # (tests/test_n4_pallas.py); see ventjax/ops/n4_pallas.py.
-    n4_use_pallas: "bool | None" = None
 
     # ---- Report / screenshot (Vent_Analysis.py:458-520) ----------------------
     # Parula LUT index = int(CI * parula_scale_num / parula_scale_den)

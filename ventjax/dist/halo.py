@@ -28,6 +28,7 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ventjax.ops.ci_pairwise import (
+    SENTINEL,
     CIPairwiseGeometry,
     resolve_balls_two_phase,
 )
@@ -53,9 +54,10 @@ def make_sliced_ci_fn(
     max_defect_per_shard: int = 2048,
     halo_pad: Optional[int] = None,
     padded_depth: Optional[int] = None,
-    head_balls: int = 96,
+    head_balls: int = 128,
     tail_k: Optional[int] = None,
     use_pallas: Optional[bool] = None,
+    interpret: bool = False,
 ):
     """Build a jitted fn: defect [H,W,Dp] (Dp sharded) -> (ci_map, n_saturated,
     overflow) with the same semantics as calculate_ci_pairwise.
@@ -79,12 +81,11 @@ def make_sliced_ci_fn(
     compactions (benchmarks config 7).
 
     Each shard then runs the same two-phase engine as the unsharded path
-    (head compare-reduce — the Pallas block-skip kernel on TPU — then a
-    compacted order-statistics tail over ``tail_k`` lanes, default
-    max(256, K//8) per shard): centers are the local slab, witnesses the
-    local compaction + both received halo buffers (K + 2*halo_pad lanes;
-    ``halo_pad`` defaults to K//2, keeping the kernel-tileable 2K total).
-    ``use_pallas=None`` auto-selects by backend exactly like
+    (head compare-reduce, then a compacted order-statistics tail over
+    ``tail_k`` lanes, default max(256, K//8) per shard): centers are the
+    local slab, witnesses the local compaction + both received halo
+    buffers (K + 2*halo_pad lanes; ``halo_pad`` defaults to K//2).
+    ``use_pallas``/``interpret`` choose the head exactly as in
     ``calculate_ci_pairwise``.  Per-shard center/halo/tail overflow
     saturates those rows and sets the psum'd overflow flag (never
     silently wrong).
@@ -116,7 +117,7 @@ def make_sliced_ci_fn(
     M = geom.n_balls
     K = max_defect_per_shard
     HP = K // 2 if halo_pad is None else int(halo_pad)
-    SENT = jnp.int32(1 << 20)
+    SENT = jnp.int32(SENTINEL)
 
     from ventjax.ops.basic import compact_mask_indices
 
@@ -182,7 +183,7 @@ def make_sliced_ci_fn(
         jballs, tail_ovf = resolve_balls_two_phase(
             (vi, vj, vk), (wi, wj, wk), geom,
             head_balls=head_balls, tail_k=tail_k, use_pallas=use_pallas,
-            valid=cvalid,
+            valid=cvalid, interpret=interpret,
         )
         saturated = (jballs >= M - 1) & cvalid
         cv = jnp.asarray(geom.radii32)[jballs] * geom.min_vox
@@ -218,9 +219,10 @@ def calculate_ci_sharded(
     n_shards: Optional[int] = None,
     max_defect_voxels: int = 8192,
     halo_pad: Optional[int] = None,
-    head_balls: int = 96,
+    head_balls: int = 128,
     tail_k: Optional[int] = None,
     use_pallas: Optional[bool] = None,
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Oversize-volume CI, slice-sharded over devices — the product surface.
 
@@ -262,7 +264,7 @@ def calculate_ci_sharded(
            tuple(d.id for d in mesh.devices.flat), axis_name,
            int(max_defect_voxels), hpad, Dp,
            int(head_balls), tail_k if tail_k is None else int(tail_k),
-           use_pallas)
+           use_pallas, interpret)
     fn = _FN_CACHE.get(key)
     if fn is None:
         fn = make_sliced_ci_fn(
@@ -270,7 +272,7 @@ def calculate_ci_sharded(
             max_defect_per_shard=int(max_defect_voxels),
             halo_pad=hpad, padded_depth=Dp,
             head_balls=int(head_balls), tail_k=tail_k,
-            use_pallas=use_pallas,
+            use_pallas=use_pallas, interpret=interpret,
         )
         _FN_CACHE[key] = fn
     padded = defect

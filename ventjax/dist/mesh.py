@@ -2,11 +2,11 @@
 
 The reference has no distributed story (SURVEY.md §2.3): one subject at a
 time on one CPU.  Here the primary scaling axis is the cohort batch: a
-1-D ("batch",) mesh over a TPU slice, shard_map-ing the fused pipeline so
-each chip analyzes its shard of subjects with zero cross-chip traffic on the
-hot path (collectives appear only in cohort-level aggregations, which XLA
-routes over ICI).  Multi-host slices initialize through
-jax.distributed.initialize (DCN for control, ICI for collectives).
+1-D ("batch",) mesh over the visible devices, shard_map-ing the fused
+pipeline so each device analyzes its shard of subjects with zero
+cross-device traffic on the hot path (collectives appear only in
+cohort-level aggregations).  Multi-host runs initialize through
+jax.distributed.initialize.
 """
 from __future__ import annotations
 
@@ -96,8 +96,9 @@ def initialize_multihost(
 ) -> None:
     """Multi-host runtime init (no-op when single-process).
 
-    On a multi-host TPU slice, call once before building meshes; arguments
-    default to TPU-pod autodetection inside jax.distributed.initialize.
+    On a multi-host run, call once before building meshes with the
+    coordinator address, process count and this process's id (a GPU host
+    has no cluster autodetection).
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:
         jax.distributed.initialize(

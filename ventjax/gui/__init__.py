@@ -2,7 +2,7 @@
 
 The reference ships a PySimpleGUI desktop app wrapping the whole pipeline
 (/root/reference/Vent_Analysis.py:607-1013).  ventjax splits that app in
-two so the event-loop logic is unit-testable on a headless TPU VM:
+two so the event-loop logic is unit-testable on a headless server:
 
   * :mod:`ventjax.gui.controller` — every GUI event as a plain method over
     an explicit :class:`GuiState`; no toolkit import anywhere.

@@ -3,7 +3,7 @@
 The reference lists "automatic segmentation using proton (maybe DL this?)"
 as a roadmap item (README.md:22-30, Vent_Analysis.py:1019-1026); masks are
 otherwise drawn by hand and loaded from a DICOM folder.  This module
-provides that capability TPU-first:
+provides that capability on the device:
 
 - a compact 2-D U-Net (flax) applied slice-wise to [N,H,W,D] proton volumes;
 - a jitted optax train step (masked BCE + Dice) that shards over a
@@ -150,9 +150,9 @@ def load_checkpoint(path: str) -> TrainState:
     opt_state=None (fine for inference; re-init the optimizer to resume
     training).
 
-    Restores as host numpy so a checkpoint written on one backend (the
-    artifact is trained on TPU) loads on any other (CPU tests) — orbax
-    otherwise demands the saved sharding's device."""
+    Restores as host numpy so a checkpoint written on one backend loads
+    on any other (CPU tests, GPU) — orbax otherwise demands the saved
+    sharding's device."""
     import numpy as np
     import orbax.checkpoint as ocp
 

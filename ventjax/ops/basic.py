@@ -16,10 +16,9 @@ def sort_compact_masked(values: jnp.ndarray, m: jnp.ndarray, pad: int):
     Returns (idx, vals, n_mask): row-major flat indices and values of the
     masked elements, padded to static length `pad` (padded idx slots are
     clamped to V-1; mask validity = arange(pad) < n_mask).  One key-value
-    sort — ~3x faster on this TPU than jnp.nonzero(size=...) followed by a
-    gather (both lower to sorts, but the sort carries the values along
-    instead of re-gathering them), and byte-identical in its first n_mask
-    slots: ascending index keys reproduce nonzero's row-major order.
+    sort that carries the values along instead of re-gathering them after
+    a jnp.nonzero(size=...), byte-identical in its first n_mask slots:
+    ascending index keys reproduce nonzero's row-major order.
     """
     V = values.shape[0]
     key = jnp.where(m, jnp.arange(V, dtype=jnp.int32), jnp.int32(V))
@@ -86,10 +85,10 @@ def _key_to_float(key: jnp.ndarray) -> jnp.ndarray:
 def masked_kth_smallest(x: jnp.ndarray, m: jnp.ndarray, k: jnp.ndarray) -> jnp.ndarray:
     """Exact (k+1)-th smallest masked float32 value, sort-free.
 
-    A full jnp.sort of a 262k-voxel volume costs ~10 ms on TPU; instead run
-    a 32-step binary search over the IEEE-754 bitspace (floats map to a
-    totally ordered uint32 key), counting masked values <= pivot with one
-    fused compare-reduce per step — ~8M VPU ops, microseconds.
+    Instead of a full jnp.sort of the volume, run a 32-step binary search
+    over the IEEE-754 bitspace (floats map to a totally ordered uint32
+    key), counting masked values <= pivot with one fused compare-reduce
+    per step.
     """
     keys = _order_key(x).reshape(-1)
     w = (m.reshape(-1) > 0)

@@ -1,4 +1,4 @@
-"""Pairwise-distance CI engine — the TPU-native fast path (zero gathers).
+"""Pairwise-distance CI engine — the default CI engine (zero gathers).
 
 Reformulation.  The defect mask is sparse (n_def voxels), so ball hit counts
 are pairwise statements between defect voxels:
@@ -49,6 +49,13 @@ import numpy as np
 
 
 from ventjax.oracle.ci_oracle import shell_structure, sphere_pixels
+
+# Far-away coordinate of padded (invalid) center and witness lanes: it
+# fails every box check against a real voxel.
+SENTINEL = 1 << 20
+# Defect pad (K) from which auto mode runs the head phase in the
+# block-skip kernel (ventjax.ops.ci_pallas) instead of the XLA head.
+HEAD_KERNEL_MIN_K = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,7 +232,7 @@ def ci_pairwise_balls(
     kpad = n_chunks * row_chunk
     # Chunk-pad rows get sentinel coordinates so they resolve in stage 1
     # (zero counts -> immediate fail) and never trigger the sort fallback.
-    pad = lambda x: jnp.full((kpad,), 1 << 20, x.dtype).at[:K].set(x)
+    pad = lambda x: jnp.full((kpad,), SENTINEL, x.dtype).at[:K].set(x)
     return jax.lax.map(
         row_block,
         (
@@ -241,18 +248,19 @@ def resolve_balls_two_phase(
     witnesses: Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray],
     geom: CIPairwiseGeometry,
     *,
-    head_balls: int = 96,
+    head_balls: int = 128,
     tail_k: Optional[int] = None,
     row_chunk: int = 1024,
     use_pallas: Optional[bool] = None,
     valid: Optional[jnp.ndarray] = None,
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """First-failing-ball index per center via the two-phase engine.
 
     Bit-equal to ``ci_pairwise_balls(centers, witnesses, geom)`` on valid
     rows at a fraction of its sort cost: phase A checks the first
-    `head_balls` balls by direct compare-reduce counts (the Pallas VMEM
-    block-skip kernel on TPU, fused XLA blocks elsewhere); rows with no
+    `head_balls` balls by direct compare-reduce counts (fused XLA blocks,
+    or the block-skip kernel of ``ventjax.ops.ci_pallas``); rows with no
     head crossing are compacted to `tail_k` lanes and finished by the full
     order-statistics sort.  Shared by the unsharded engine
     (`calculate_ci_pairwise`, where witnesses == centers) and the
@@ -269,68 +277,61 @@ def resolve_balls_two_phase(
     keeps that order, so valid unresolved rows always win tail lanes over
     padding.
 
+    use_pallas: None picks the head kernel on a GPU backend once K
+    reaches HEAD_KERNEL_MIN_K; True/False force it or the XLA head.
+    ``interpret`` runs the kernel in the Pallas interpreter (CPU tests).
+
     Returns ``(jballs [K] int32, tail_overflow bool)``; overflowed rows
     keep the M-1 saturation sentinel (never silently wrong).
     """
     ii, jj, kk = centers
     wi, wj, wk = witnesses
     K = ii.shape[0]
-    Kw = wi.shape[0]
     M = geom.n_balls
 
-    if use_pallas is None:
-        # Measured crossover on v5e (docs/PERF.md): the VMEM kernel wins at
-        # heavy defect loads (K >= 2048: 1.35x at K=4096); the XLA head wins
-        # at small K where kernel launch/tiling overhead dominates.  TPU
-        # only — the Mosaic kernels do not lower on other accelerators
-        # (same gate as n4.py auto_ok).
-        use_pallas = jax.default_backend() == "tpu" and K >= 2048
-    if use_pallas and (K % min(128, K) or Kw % min(512, Kw)):
-        use_pallas = False  # non-tileable pad; the XLA head handles any size
-
     ns = min(int(head_balls), M - 1)
-    if use_pallas:
-        # The VMEM kernel computes 128 lane-aligned ball slots regardless
-        # of ns, so the extra head coverage is free — and each extra ball
-        # resolved in the head is one fewer row for the (sort-based) tail.
-        ns = min(max(ns, 128), M - 1)
-    r2 = jnp.asarray(geom.r2_32)
-    t_head = jnp.asarray(((geom.rows_ball + 1) // 2)[:ns].astype(np.float32))
-
-    def head_block(vc):
-        dmin2 = _alias_min_d2(vc, (wi, wj, wk), geom)
-        fails = []
-        # 32-cutoff blocks keep each compare-reduce inside XLA's fusion
-        # budget (wider blocks materialize the [rows, nw, cuts] tensor).
-        for a in range(0, ns, 32):
-            b = min(a + 32, ns)
-            counts = jnp.sum(
-                (dmin2[:, :, None] <= r2[a:b][None, None, :]).astype(
-                    jnp.float32),
-                axis=1,
-            )
-            fails.append(counts < t_head[a:b][None, :])
-        fail_head = jnp.concatenate(fails, axis=1)
-        return jnp.any(fail_head, axis=1), jnp.argmax(fail_head, axis=1)
+    if use_pallas is None:
+        use_pallas = (jax.default_backend() == "gpu"
+                      and K >= HEAD_KERNEL_MIN_K)
 
     if use_pallas:
-        from ventjax.ops.ci_pallas import head_counts_pallas
+        from ventjax.ops.ci_pallas import head_first_fail_pallas
 
-        counts = head_counts_pallas(
-            ii, jj, kk, wi, wj, wk, r2[:ns],
+        first = head_first_fail_pallas(
+            ii, jj, kk, wi, wj, wk,
             combos=tuple(_alias_combos(geom)),
             scale=geom.scale,
-            ns=ns,
+            r2=tuple(float(r) for r in geom.r2_32[:ns]),
+            t_head=tuple(int(t) for t in ((geom.rows_ball + 1) // 2)[:ns]),
             rmax=geom.rmax,
-            interpret=jax.default_backend() == "cpu",
+            interpret=interpret,
         )
-        fail_head = counts < t_head[None, :]
-        resolved = jnp.any(fail_head, axis=1)
-        j_head = jnp.argmax(fail_head, axis=1).astype(jnp.int32)
+        resolved = first < ns
+        j_head = first
     else:
+        r2 = jnp.asarray(geom.r2_32)
+        t_head = jnp.asarray(
+            ((geom.rows_ball + 1) // 2)[:ns].astype(np.float32))
+
+        def head_block(vc):
+            dmin2 = _alias_min_d2(vc, (wi, wj, wk), geom)
+            fails = []
+            # 32-cutoff blocks keep each compare-reduce inside XLA's fusion
+            # budget (wider blocks materialize the [rows, nw, cuts] tensor).
+            for a in range(0, ns, 32):
+                b = min(a + 32, ns)
+                counts = jnp.sum(
+                    (dmin2[:, :, None] <= r2[a:b][None, None, :]).astype(
+                        jnp.float32),
+                    axis=1,
+                )
+                fails.append(counts < t_head[a:b][None, :])
+            fail_head = jnp.concatenate(fails, axis=1)
+            return jnp.any(fail_head, axis=1), jnp.argmax(fail_head, axis=1)
+
         n_chunks = -(-K // row_chunk)
         kpad = n_chunks * row_chunk
-        pad = lambda x: jnp.full((kpad,), 1 << 20, x.dtype).at[:K].set(x)
+        pad = lambda x: jnp.full((kpad,), SENTINEL, x.dtype).at[:K].set(x)
         resolved, j_head = jax.lax.map(
             head_block,
             (
@@ -344,7 +345,7 @@ def resolve_balls_two_phase(
     jballs = jnp.where(resolved, j_head, M - 1)
 
     # Phase B: compact unresolved rows (stable sort: unresolved first).
-    SENT = jnp.int32(1 << 20)
+    SENT = jnp.int32(SENTINEL)
     K2 = int(tail_k) if tail_k is not None else max(256, K // 8)
     K2 = min(K2, K)
     sel = jnp.argsort(resolved, stable=True)[:K2]
@@ -366,25 +367,24 @@ def calculate_ci_pairwise(
     geom: CIPairwiseGeometry,
     max_defect_voxels: int = 8192,
     row_chunk: int = 1024,
-    head_balls: int = 96,
+    head_balls: int = 128,
     tail_k: Optional[int] = None,
     use_pallas: Optional[bool] = None,
-    pallas_densify: Optional[bool] = None,
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """CI map via the pairwise engine; returns (ci_map, n_saturated, overflow).
 
     Two exact phases.  Phase A checks the first `head_balls` balls directly
-    (fail_j <=> count(d^2 <= r_j^2) < T_j), as fused 32-cutoff compare-reduce
-    blocks — no sort, and ball 96 already corresponds to CI ~17mm, past the
-    crossing of essentially every real defect voxel.  Rows with no head
+    (fail_j <=> count(d^2 <= r_j^2) < T_j) — no sort; ball 96 already
+    corresponds to CI ~17mm, past the crossing of essentially every real
+    defect voxel, and the default 128 keeps the tail of clustered severe
+    loads (~3.5k defects at K=4096) inside its budget.  Rows with no head
     crossing are compacted to `tail_k` lanes and finished by the full
     order-statistics engine.  Compaction overflow is reported in the
     overflow flag (excess rows saturate — never silently wrong).
 
-    use_pallas: None (default) auto-selects the Pallas VMEM head kernel on
-    TPU backends (ventjax.ops.ci_pallas — same f32 arithmetic, bit-equal,
-    tested); False forces the XLA head; True forces the kernel (interpreted
-    when the backend is CPU, for tests).
+    use_pallas / interpret: the head phase's kernel choice, as in
+    ``resolve_balls_two_phase``.
     """
     H, W, D = geom.shape
     K = max_defect_voxels
@@ -396,7 +396,7 @@ def calculate_ci_pairwise(
     flat_c = d01.reshape(-1)
     cidx, n_def = compact_mask_indices(flat_c, K)
     valid = jnp.arange(K) < n_def
-    SENT = jnp.int32(1 << 20)  # far-away sentinel: fails box checks
+    SENT = jnp.int32(SENTINEL)
     ii = jnp.where(valid, (cidx // (W * D)).astype(jnp.int32), SENT)
     jj = jnp.where(valid, ((cidx // D) % W).astype(jnp.int32), -SENT)
     kk = jnp.where(valid, (cidx % D).astype(jnp.int32), SENT)
@@ -405,37 +405,17 @@ def calculate_ci_pairwise(
         (ii, jj, kk), (ii, jj, kk), geom,
         head_balls=head_balls, tail_k=tail_k,
         row_chunk=row_chunk, use_pallas=use_pallas, valid=valid,
+        interpret=interpret,
     )
 
     saturated = (jballs >= M - 1) & valid
     cv = jnp.asarray(geom.radii32)[jballs] * geom.min_vox
 
-    # Dense-map construction.  The scatter is the measured optimum on this
-    # TPU (~1.0-1.3 ms/vol at K=512 — a sequential per-update lowering,
-    # but every alternative loses: rank+[V]-gather 3.7, XLA one-hot matmul
-    # 1.2, segment_sum/scatter-add/sorted-unique hints ~1.0, and the
-    # Pallas rank+table-select kernels below 1.4 ms/vol, dominated by
-    # per-block overhead at their tiny per-block work).  The kernels
-    # (ci_pallas.rank_pallas + densify_rank_pallas) remain available via
-    # pallas_densify=True — bit-exact (HIGHEST-precision table dot),
-    # tested, and the right shape for a platform where scatter is worse.
     V = H * W * D
-    if pallas_densify is None:
-        dens_pallas = False
-    else:
-        dens_pallas = bool(pallas_densify) and V % 4096 == 0
-    if dens_pallas:
-        from ventjax.ops.ci_pallas import densify_rank_pallas, rank_pallas
-
-        interp = jax.default_backend() == "cpu"
-        # XLA's 1-D cumsum costs ~0.9 ms/vol on [262k] (measured) — the
-        # blockwise MXU prefix kernel replaces it.
-        rank = rank_pallas(flat_c, interpret=interp)
-        ci_flat = densify_rank_pallas(rank, flat_c, cv, K, interpret=interp)
-    else:
-        ci_flat = jnp.zeros(V, jnp.float32)
+    with jax.named_scope("ci_densify"):
         scatter_idx = jnp.where(valid, cidx, V)
-        ci_flat = ci_flat.at[scatter_idx].set(cv, mode="drop")
+        ci_flat = jnp.zeros(V, jnp.float32).at[scatter_idx].set(
+            cv, mode="drop")
     return (
         ci_flat.reshape(H, W, D),
         jnp.sum(saturated),

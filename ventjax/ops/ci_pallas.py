@@ -1,23 +1,30 @@
-"""Pallas TPU kernel for the CI pairwise head phase (SURVEY.md §7 hard
-part 2 names Pallas as the CI performance lever).
+"""Pallas kernel (Triton route) for the CI pairwise head phase.
 
 The head phase tests, for every defect voxel (center) against every defect
-voxel (witness), whether the first `ns` balls already fail the >= 50%%
+voxel (witness), whether the first `ns` balls already fail the >= 50%
 defect-fraction rule: fail_j <=> count(dmin2 <= r_j^2) < T_j, where dmin2
 is the min-over-alias-combos squared scaled distance (ci_pairwise.py).
 
-The XLA formulation materializes the [rows, K] dmin2 matrix and the
-[rows, K, 32] broadcast compare blocks in HBM (XLA's fusion width budget);
-this kernel keeps everything in VMEM: a (center-block x witness-block) grid
-computes dmin2 for its tile and accumulates the [rows, ns] counts in place,
-so HBM traffic is just coordinates in / counts out.  Exactness: identical
-f32 expression per combo, tested bit-equal against the XLA head
-(tests/test_ci_pallas.py); inbox checks are provably redundant because
-scale >= 1 implies d2 <= r_last^2 bounds every |offset| by rmax.
+The XLA head evaluates every alias combo for every center x witness pair
+and materializes [row_chunk, K] distances between its fusions.  This
+kernel keeps the whole pair loop on chip and skips work the XLA head
+cannot: per witness block it tests, from the blocks' coordinate ranges,
+which alias combos can place any pair inside the rmax box, and skips the
+infeasible combos -- and whole far-apart block pairs -- outright.  Severe
+disease is where that pays: K reaches 4096-8192 and the head's work grows
+with K^2, but clustered defects leave most block pairs out of reach.
 
-Usage is automatic: calculate_ci_pairwise(..., use_pallas=True) routes the
-head phase here on TPU and falls back to the XLA path elsewhere (tests run
-the kernel in interpreter mode on CPU).
+Layout: one program per block of `_RB` centers; it loops over the
+witnesses in blocks of `_WB`, so each (center, witness) tile has exactly
+one pair per thread and the `ns` per-radius hit counts stay in registers
+as [_RB, _WB] partial sums, reduced once after the loop.  The program
+returns the first failing head ball per center (ns = none), which is all
+the engine reads from the counts.
+
+Exactness: the same f32 expression per combo as the XLA head, and counts
+are exact integers, so results are bit-equal (tests/test_ci_pallas.py).
+The box check of the XLA head is implied: scale >= 1 means d2 <= r_ns^2
+<= r_last^2 bounds every |offset| by rmax.
 """
 from __future__ import annotations
 
@@ -26,308 +33,132 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+from ventjax.ops.ci_pairwise import SENTINEL
+
+_RB = 32            # centers per program
+_WB = 4             # witnesses per loop step
+_NUM_WARPS = 4      # 128 threads = one pair of the [_RB, _WB] tile each
+# Padded witnesses sit far from every center (real or sentinel), so they
+# never count; padded centers are sentinels, and sliced off.
+_WPAD = -(1 << 21)
 
 
-def _head_kernel(vim_ref, vix_ref, vjm_ref, vjx_ref,
-                 wim_ref, wix_ref, wjm_ref, wjx_ref,
-                 ci_ref, cj_ref, ck_ref, wi_ref, wj_ref, wk_ref,
-                 r2_ref, counts_ref, dmin_ref, *, combos, scale, rmax):
-    """One (center-block, witness-block) grid cell: accumulate ball counts.
+def _head_kernel(ci_ref, cj_ref, ck_ref, wi_ref, wj_ref, wk_ref,
+                 wim_ref, wix_ref, wjm_ref, wjx_ref, out_ref, *,
+                 combos, scale, r2, t_head, rmax, n_wblocks):
+    ci = ci_ref[...][:, None]
+    cj = cj_ref[...][:, None]
+    ck = ck_ref[...][:, None]
+    vim, vix = jnp.min(ci), jnp.max(ci)
+    vjm, vjx = jnp.min(cj), jnp.max(cj)
+    s0, s1, s2 = (jnp.float32(s) for s in scale)
+    ns = len(r2)
 
-    ci/cj/ck: [ROWS, 1] i32 center coords; wi/wj/wk: [1, WB] i32 witness
-    coords; r2: [1, NS] f32 squared ball radii; counts: [ROWS, NS] f32,
-    accumulated across the witness grid dimension (TPU grids run
-    sequentially, so in-place accumulation is safe).
+    def witness_block(jb, accs):
+        wim, wix = wim_ref[jb], wix_ref[jb]
+        wjm, wjx = wjm_ref[jb], wjx_ref[jb]
+        # oi = wi - ci + p spans [wim - vix + p, wix - vim + p]; a combo
+        # can hit only if that interval meets [-rmax, rmax] (same for j;
+        # sentinels only widen the intervals, so the test is conservative).
+        feasible = [
+            (wim - vix + p <= rmax) & (wix - vim + p >= -rmax)
+            & (wjm - vjx + q <= rmax) & (wjx - vjm + q >= -rmax)
+            for (p, q, _) in combos
+        ]
+        live = functools.reduce(jnp.logical_or, feasible)
 
-    Block-level combo skipping (the severe-disease lever): the prefetched
-    per-block coordinate ranges (vim/vix = center-i min/max per row block,
-    w* = witness ranges per witness block) prove most alias combos — and
-    for far-apart cluster pairs the whole cell — infeasible: a combo can
-    contribute counts only if some pair has |wi-vi+p| <= rmax AND
-    |wj-vj+q| <= rmax (scale >= 1 makes the box check an upper bound on
-    d2 <= r_last^2).  Skips are interval tests on SMEM scalars, so they
-    are conservative under the +-SENT sentinel padding (sentinels only
-    widen the intervals) and results stay bit-equal to the XLA head.
-    """
-    iblk = pl.program_id(0)
-    jblk = pl.program_id(1)
+        def count(accs):
+            sl = pl.ds(jb * _WB, _WB)
+            wi = wi_ref[sl][None, :]
+            wj = wj_ref[sl][None, :]
+            wk = wk_ref[sl][None, :]
+            dmin = jnp.full((_RB, _WB), jnp.inf, jnp.float32)
+            for (p, q, s), feas in zip(combos, feasible):
+                def combo(d, p=p, q=q, s=s):
+                    fx = ((wi - ci) + p).astype(jnp.float32) * s0
+                    fy = ((wj - cj) + q).astype(jnp.float32) * s1
+                    fz = ((wk - ck) + s).astype(jnp.float32) * s2
+                    return jnp.minimum(d, fx * fx + fy * fy + fz * fz)
+                dmin = jax.lax.cond(feas, combo, lambda d: d, dmin)
+            return tuple(a + (dmin <= jnp.float32(r)).astype(jnp.int32)
+                         for a, r in zip(accs, r2))
 
-    @pl.when(jblk == 0)
-    def _():
-        counts_ref[:, :] = jnp.zeros_like(counts_ref)
+        return jax.lax.cond(live, count, lambda a: a, accs)
 
-    vim = vim_ref[iblk]
-    vix = vix_ref[iblk]
-    vjm = vjm_ref[iblk]
-    vjx = vjx_ref[iblk]
-    wim = wim_ref[jblk]
-    wix = wix_ref[jblk]
-    wjm = wjm_ref[jblk]
-    wjx = wjx_ref[jblk]
-
-    feasible = []
-    for (p, q, s) in combos:
-        # oi = wi - ci + p spans [wim - vix + p, wix - vim + p]; the combo
-        # is live iff that interval meets [-rmax, rmax] (same for j; the
-        # slice axis is never more than one shard of shells and is left
-        # unchecked).
-        fi = (wim - vix + p <= rmax) & (wix - vim + p >= -rmax)
-        fj = (wjm - vjx + q <= rmax) & (wjx - vjm + q >= -rmax)
-        feasible.append(fi & fj)
-    cell_live = feasible[0]
-    for f in feasible[1:]:
-        cell_live = cell_live | f
-
-    @pl.when(cell_live)
-    def _():
-        s0, s1, s2 = scale
-        dmin_ref[:, :] = jnp.full_like(dmin_ref, jnp.inf)
-        for (p, q, s), feas in zip(combos, feasible):
-            @pl.when(feas)
-            def _(p=p, q=q, s=s):
-                oi = (wi_ref[:, :] - ci_ref[:, :]) + p
-                oj = (wj_ref[:, :] - cj_ref[:, :]) + q
-                ok_ = (wk_ref[:, :] - ck_ref[:, :]) + s
-                fx = oi.astype(jnp.float32) * s0
-                fy = oj.astype(jnp.float32) * s1
-                fz = ok_.astype(jnp.float32) * s2
-                d2 = fx * fx + fy * fy + fz * fz
-                dmin_ref[:, :] = jnp.minimum(dmin_ref[:, :], d2)
-
-        ns_pad = counts_ref.shape[1]
-        dmin2 = dmin_ref[:, :]
-        # 8-radius sub-blocks with the radius on the sublane dim: the
-        # [ROWS, 8, WB] compare intermediate tiles cleanly (f32 sublane 8,
-        # lane WB) and stays in VMEM.
-        for a in range(0, ns_pad, 8):
-            r2blk = r2_ref[0:1, a:a + 8].reshape(1, 8, 1)
-            blk = jnp.sum(
-                (dmin2[:, None, :] <= r2blk).astype(jnp.float32), axis=2
-            )
-            counts_ref[:, a:a + 8] += blk
+    zero = (jnp.zeros((_RB, _WB), jnp.int32),) * ns
+    # A block of sentinel centers (invalid lanes: all i >= SENTINEL) is
+    # padding whose head result no caller reads; skip its witness loop.
+    accs = jax.lax.cond(
+        vim >= SENTINEL, lambda a: a,
+        lambda a: jax.lax.fori_loop(0, n_wblocks, witness_block, a), zero)
+    first = jnp.full((_RB,), ns, jnp.int32)
+    for j in reversed(range(ns)):
+        fail = jnp.sum(accs[j], axis=1) < t_head[j]
+        first = jnp.where(fail, j, first)
+    out_ref[...] = first
 
 
 @functools.partial(
-    jax.jit, static_argnames=("combos", "scale", "ns", "rmax", "interpret")
+    jax.jit,
+    static_argnames=("combos", "scale", "r2", "t_head", "rmax", "interpret"),
 )
-def head_counts_pallas(
+def head_first_fail_pallas(
     ci: jnp.ndarray, cj: jnp.ndarray, ck: jnp.ndarray,
     wi: jnp.ndarray, wj: jnp.ndarray, wk: jnp.ndarray,
-    r2_head: jnp.ndarray,
+    *,
     combos: Tuple[Tuple[int, int, int], ...],
     scale: Tuple[float, float, float],
-    ns: int,
-    rmax: int = 50,
+    r2: Tuple[float, ...],
+    t_head: Tuple[int, ...],
+    rmax: int,
     interpret: bool = False,
 ) -> jnp.ndarray:
-    """[K, ns] f32 ball hit counts for the first ns balls."""
+    """[K] int32 index of the first head ball that fails, len(r2) if none.
+
+    ci/cj/ck: [K] int32 center coordinates; wi/wj/wk: [Kw] int32 witness
+    coordinates (either may hold sentinel-padded lanes; rows of sentinel
+    centers come back with arbitrary values, and callers mask them).
+    r2/t_head are the head's squared float32 radii and hit thresholds,
+    static because they are geometry constants.  ``interpret`` runs the kernel in the
+    Pallas interpreter (tests on the CPU); production never sets it.
+    """
     K = ci.shape[0]
     Kw = wi.shape[0]
-    ROWS = min(128, K)
-    WB = min(512, Kw)
-    assert K % ROWS == 0 and Kw % WB == 0, (K, Kw)
-    ns_pad = 128  # lane-aligned; padded radii are +inf and sliced off
-    assert ns <= ns_pad
-    r2p = jnp.full((1, ns_pad), jnp.inf, jnp.float32).at[0, :ns].set(
-        r2_head.astype(jnp.float32))
-
-    grid = (K // ROWS, Kw // WB)
-    # Per-block coordinate ranges for the kernel's combo-skip interval
-    # tests (compaction emits centers/witnesses in ascending flat order, so
-    # blocks are spatially coherent and the ranges are tight).
-    vim = ci.reshape(-1, ROWS).min(axis=1)
-    vix = ci.reshape(-1, ROWS).max(axis=1)
-    vjm = cj.reshape(-1, ROWS).min(axis=1)
-    vjx = cj.reshape(-1, ROWS).max(axis=1)
-    wim = wi.reshape(-1, WB).min(axis=1)
-    wix = wi.reshape(-1, WB).max(axis=1)
-    wjm = wj.reshape(-1, WB).min(axis=1)
-    wjx = wj.reshape(-1, WB).max(axis=1)
-
-    # index maps receive the 8 prefetched scalar refs after the grid ids
-    cspec = pl.BlockSpec((ROWS, 1), lambda i, j, *_: (i, 0),
-                         memory_space=pltpu.VMEM)
-    wspec = pl.BlockSpec((1, WB), lambda i, j, *_: (0, j),
-                         memory_space=pltpu.VMEM)
-    rspec = pl.BlockSpec((1, ns_pad), lambda i, j, *_: (0, 0),
-                         memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((ROWS, ns_pad), lambda i, j, *_: (i, 0),
-                            memory_space=pltpu.VMEM)
+    kp = -(-K // _RB) * _RB
+    kwp = -(-Kw // _WB) * _WB
+    cpad = lambda x: jnp.pad(x.astype(jnp.int32), (0, kp - K),
+                             constant_values=SENTINEL)
+    wpad = lambda x: jnp.pad(x.astype(jnp.int32), (0, kwp - Kw),
+                             constant_values=_WPAD)
+    ci, cj, ck = cpad(ci), cpad(cj), cpad(ck)
+    wi, wj, wk = wpad(wi), wpad(wj), wpad(wk)
+    n_wblocks = kwp // _WB
+    # Per-witness-block coordinate ranges for the combo-skip tests
+    # (compaction emits voxels in ascending flat order, so blocks are
+    # spatially coherent and the ranges are tight).
+    wib, wjb = wi.reshape(n_wblocks, _WB), wj.reshape(n_wblocks, _WB)
+    ranges = (wib.min(1), wib.max(1), wjb.min(1), wjb.max(1))
 
     kernel = functools.partial(
         _head_kernel, combos=tuple(combos), scale=tuple(scale),
-        rmax=int(rmax),
+        r2=tuple(r2), t_head=tuple(t_head), rmax=int(rmax),
+        n_wblocks=n_wblocks,
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=8,
-        grid=grid,
-        in_specs=[cspec, cspec, cspec, wspec, wspec, wspec, rspec],
-        out_specs=out_spec,
-        scratch_shapes=[pltpu.VMEM((ROWS, WB), jnp.float32)],
-    )
-    counts = pl.pallas_call(
+    cspec = pl.BlockSpec((_RB,), lambda i: (i,))
+    whole = pl.BlockSpec((kwp,), lambda i: (0,))
+    rspec = pl.BlockSpec((n_wblocks,), lambda i: (0,))
+    out = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((K, ns_pad), jnp.float32),
+        grid=(kp // _RB,),
+        in_specs=[cspec] * 3 + [whole] * 3 + [rspec] * 4,
+        out_specs=cspec,
+        out_shape=jax.ShapeDtypeStruct((kp,), jnp.int32),
+        compiler_params=pltriton.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(
-        vim, vix, vjm, vjx, wim, wix, wjm, wjx,
-        ci.reshape(K, 1), cj.reshape(K, 1), ck.reshape(K, 1),
-        wi.reshape(1, Kw), wj.reshape(1, Kw), wk.reshape(1, Kw),
-        r2p,
-    )
-    return counts[:, :ns]
-
-
-# ---------------------------------------------------------------------------
-# Dense CI-map construction (scatter replacement).
-#
-# The final step of calculate_ci_pairwise writes K defect-voxel CI values
-# into the [V] volume.  XLA's scatter lowers to a sequential per-update
-# loop on TPU — measured ~1.0-2.0 ms/vol for K=512, the single largest
-# slice of the CI op; a [V]-gather rank formulation is worse (3.7 ms/vol)
-# and an XLA one-hot matmul materializes [K, 4096] operands per block
-# (1.2 ms/vol).  This kernel uses the rank identity instead:
-#
-#   dense[v] = defect[v] ? cv[rank[v]] : 0,   rank = cumsum(defect) - 1
-#
-# (exact because the compacted defect indices are ascending, so the j-th
-# defect voxel in row-major order owns cv[j]).  The table lookup runs in
-# VMEM via the same (hi, lo) bin-split one-hot dots as the N4 sharpen
-# kernels: lo = rank & 31 selects a row of the [32, G] table, hi =
-# rank >> 5 a column via a [G, PC] one-hot contraction.  rank comes from
-# rank_pallas below (XLA's 1-D cumsum itself costs ~0.9 ms/vol on [262k]);
-# overflow voxels (rank >= K) produce 0 exactly like the scatter's
-# mode="drop".
-# ---------------------------------------------------------------------------
-
-_DPC = 4096   # voxels per grid step
-
-
-def _densify_kernel(rank_ref, d_ref, tab_ref, out_ref, *, k, gp):
-    rank = rank_ref[:, :]                                  # [1, PC] i32
-    lo = rank & 31
-    hi = rank >> 5
-    gio_g = jax.lax.broadcasted_iota(jnp.int32, (gp, _DPC), 0)
-    gio_l = jax.lax.broadcasted_iota(jnp.int32, (32, _DPC), 0)
-    ahi = (hi == gio_g).astype(jnp.float32)                # [GP, PC]
-    alo = (lo == gio_l).astype(jnp.float32)                # [32, PC]
-    # HIGHEST precision: the MXU's default f32 path quantizes inputs to
-    # bf16, which would corrupt the exact CI radii values (measured on
-    # chip); the 3-pass f32 emulation is exact for one-hot selection and
-    # this dot is tiny.
-    tmp = jax.lax.dot_general(
-        tab_ref[:, :], ahi, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                                      # [32, PC]
-    v = jnp.sum(tmp * alo, axis=0, keepdims=True)          # [1, PC]
-    keep = (d_ref[:, :] > 0) & (rank < k)
-    out_ref[:, :] = jnp.where(keep, v, 0.0)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "interpret"))
-def densify_rank_pallas(
-    rank: jnp.ndarray,
-    d01: jnp.ndarray,
-    cv: jnp.ndarray,
-    k: int,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """[V] dense map: cv[rank[v]] where d01[v] and rank[v] < k, else 0.
-
-    rank: [V] int32 (cumsum(d01) - 1); d01: [V] 0/1; cv: [k] f32 values in
-    defect-rank order.  V must be a multiple of 4096 (callers fall back to
-    the XLA scatter otherwise).
-    """
-    V = rank.shape[0]
-    assert V % _DPC == 0, V
-    G = -(-int(k) // 32)
-    gp = 128 * -(-G // 128)          # hi one-hot height, 128-padded
-    # table[l, g] = cv[g*32 + l], zero-padded
-    tab = jnp.zeros((32, gp), jnp.float32)
-    tab = tab.at[:, :G].set(
-        jnp.pad(cv.astype(jnp.float32), (0, G * 32 - int(k))).reshape(G, 32)
-        .swapaxes(0, 1)
-    )
-    grid = (V // _DPC,)
-    vspec = pl.BlockSpec((1, _DPC), lambda i: (0, i), memory_space=pltpu.VMEM)
-    tspec = pl.BlockSpec((32, gp), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        functools.partial(_densify_kernel, k=int(k), gp=gp),
-        grid=grid,
-        in_specs=[vspec, vspec, tspec],
-        out_specs=vspec,
-        out_shape=jax.ShapeDtypeStruct((1, V), jnp.float32),
-        interpret=interpret,
-    )(
-        rank.astype(jnp.int32).reshape(1, V),
-        d01.astype(jnp.int32).reshape(1, V),
-        tab,
-    )
-    return out.reshape(V)
-
-
-def _prefix_kernel(x_ref, lt_ref, sl_ref, ones_ref, rank_ref, off_ref):
-    """Exclusive-ish rank for one [32, 128] block of the 0/1 defect vector:
-    rank = global inclusive prefix - 1.  Prefix within the block is three
-    triangular/ones matmuls (all inputs are small integers, exact in the
-    MXU's bf16 passes with f32 accumulation); the running block offset is
-    carried in SMEM across the sequential grid."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        off_ref[0, 0] = jnp.float32(0.0)
-
-    x = x_ref[:, :].astype(jnp.float32)                    # [32, 128] 0/1
-    y = jax.lax.dot_general(                               # in-row prefix
-        x, lt_ref[:, :], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    z = jax.lax.dot_general(                               # prev-row cols
-        sl_ref[:, :], x, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    zrow = jax.lax.dot_general(                            # row-sum bcast
-        z, ones_ref[:, :], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    off = off_ref[0, 0]
-    rank_ref[:, :] = (y + zrow + off - 1.0).astype(jnp.int32)
-    off_ref[0, 0] = off + jnp.sum(x)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def rank_pallas(d01: jnp.ndarray, interpret: bool = False) -> jnp.ndarray:
-    """[V] int32 rank = cumsum(d01) - 1, via blockwise MXU prefix sums.
-
-    XLA's 1-D cumsum costs ~0.9 ms/vol on [262k] (measured; both the 1-D
-    primitive and a two-level reshape variant) — this kernel does it in
-    [32, 128] tiles with triangular matmuls and an SMEM-carried offset.
-    """
-    V = d01.shape[0]
-    assert V % 4096 == 0, V
-    lt = jnp.asarray(np.tril(np.ones((128, 128), np.float32)).T)
-    sl = jnp.asarray(np.tril(np.ones((32, 32), np.float32), -1))
-    ones = jnp.ones((128, 128), jnp.float32)
-    x2d = d01.astype(jnp.int32).reshape(V // 128, 128)
-    bspec = pl.BlockSpec((32, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-    cspec = pl.BlockSpec((128, 128), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM)
-    sspec = pl.BlockSpec((32, 32), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        _prefix_kernel,
-        grid=(V // 4096,),
-        in_specs=[bspec, cspec, sspec, cspec],
-        out_specs=bspec,
-        out_shape=jax.ShapeDtypeStruct((V // 128, 128), jnp.int32),
-        scratch_shapes=[pltpu.SMEM((1, 1), jnp.float32)],
-        interpret=interpret,
-    )(x2d, lt, sl, ones)
-    return out.reshape(V)
+        name="ci_head_first_fail",
+    )(ci, cj, ck, wi, wj, wk, *ranges)
+    return out[:K]

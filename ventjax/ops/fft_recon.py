@@ -5,14 +5,13 @@ Device equivalent of the reference's per-slice loop
 transpose (1,0,2) and flip the column axis.  Batched over slices in one
 jitted program instead of a Python loop.
 
-TPU-first formulation: the centered 2-D DFT is expressed as two dense
-matmuls per axis on split real/imaginary planes — `M_H @ X @ M_W^T` with
+Formulation: the centered 2-D DFT is expressed as two dense matmuls per
+axis on split real/imaginary planes — `M_H @ X @ M_W^T` with
 `M = fftshift . F . fftshift` baked into one matrix per axis — so the
-whole recon runs on the MXU with no complex dtype on device (this
-platform's TPU backend has no complex support at all, and at vent-image
-sizes an N^2 matmul DFT is bandwidth-trivial).  Matmuls run at
-precision=HIGHEST: the MXU's default single-pass path quantizes f32
-operands to bf16, which is visible at DFT accuracy scales.
+recon is real-valued matmuls (at vent-image sizes an N^2 matmul DFT is
+bandwidth-trivial).  Matmuls run at precision=HIGHEST: a default-precision
+float32 matmul may run in TF32 on the GPU (about three decimal digits),
+which is visible at DFT accuracy scales.
 """
 from __future__ import annotations
 
@@ -76,7 +75,7 @@ def recon_2d_multislice(kspace) -> np.ndarray:
     reference's orientation (transpose + column flip).
 
     Host-level wrapper: splits real/imag on host, runs the real-valued
-    MXU recon on device, recombines to complex64 on host.
+    matmul recon on device, recombines to complex64 on host.
     """
     k = np.asarray(kspace)
     a, b = _recon_planes(jnp.asarray(k.real, jnp.float32),

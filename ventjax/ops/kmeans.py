@@ -6,7 +6,7 @@ metadata key 'VDP_km' (line 90).  This op implements it for real, with
 deterministic quantile initialization so device and oracle
 (ventjax.oracle.reference.vdp_kmeans) agree exactly.
 
-TPU mapping: Lloyd's iterations run on a *compacted* padded vector of masked
+Device mapping: Lloyd's iterations run on a *compacted* padded vector of masked
 voxels (lungs are ~15-20% of the volume), like the N4 fit — the pipeline
 passes the same static `mask_pad`, so the StudyMetrics.n4_overflow flag
 covers both ops' truncation.  Only the final cluster assignment touches the
@@ -75,9 +75,9 @@ def vdp_kmeans(
 
     def _assign_first_min(flat_vals, centers):
         """argmin_j |v - c_j| with first-of-ties semantics, built from
-        elementwise passes only — a [N, k] distance matrix would be
-        lane-padded to [N, 128] on TPU (32x HBM bloat), so compute the
-        running min and then the lowest index attaining it."""
+        elementwise passes only (k is tiny, so no [N, k] distance matrix
+        is materialized): the running min, then the lowest index
+        attaining it."""
         ds = [jnp.abs(flat_vals - centers[j]) for j in range(k)]
         dmin = ds[0]
         for j in range(1, k):

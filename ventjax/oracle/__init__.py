@@ -3,7 +3,7 @@
 These functions replicate the *behavior* of /root/reference (including its
 quirks, each documented at the definition site) and serve as the ground truth
 for the device pipeline's unit tests (SURVEY.md §4).  They are deliberately
-simple, slow, host-side code — the TPU path lives in ventjax.ops.
+simple, slow, host-side code — the device path lives in ventjax.ops.
 """
 from ventjax.oracle.reference import (
     normalize,

@@ -198,8 +198,7 @@ def build_4d_array(
     # default-C np.zeros — only the memory layout differs): NIfTI
     # serializes in F order, and in F layout each [H,W,D] channel slab is
     # contiguous, so BOTH the per-channel fills and nifti.save's
-    # tobytes(order="F") become straight memcpys — measured 25.6 -> 3.0 ms
-    # per subject on the export path (docs/PERF.md round 5).
+    # tobytes(order="F") become straight memcpys on the export path.
     out = np.zeros((hp.shape[0], hp.shape[1], hp.shape[2], 6),
                    dtype=np.float32, order="F")
     out[:, :, :, 1] = hp

@@ -52,7 +52,7 @@ def analyze_study(
     compact-transfer pack (masked n4 values + defect flags at the shared
     mask-compaction indices, plus the B-spline lattice vector) — two [P]
     gathers and a tiny concat, so the cohort driver can ship ~0.15 MB per
-    subject instead of two dense volumes (docs/PERF.md round-5 entry).
+    subject instead of two dense volumes.
     """
     c = config
     hp = hp.astype(jnp.float32)
@@ -89,7 +89,6 @@ def analyze_study(
             return_phi=export_compact,
             return_compacted=True,
             compacted=comp,
-            use_pallas=c.n4_use_pallas,
         )
         if export_compact:
             n4, n4_overflow, n4_phi, n4_comp = n4_out
@@ -204,8 +203,7 @@ def analyze_cohort_grouped(
     Why not a single N-lane vmap: every lane of a vmapped while_loop runs
     until the LAST lane converges (converged lanes freeze via their done
     flag but still occupy device time), so a 256-lane N4 pays the cohort-max
-    iteration count on all lanes; per-chip throughput measured 238 vol/s at
-    256 lanes vs ~341 at 16 (benchmarks/RESULTS.md round 2).  Grouping
+    iteration count on all lanes.  Grouping
     restores each 16-lane group's own convergence exit — and its own
     adaptive defect compaction occupancy — while keeping one dispatch and
     one compiled program.  Lanes are computationally independent (the same

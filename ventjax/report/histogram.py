@@ -42,7 +42,7 @@ def signal_histogram(
 
     Rendered with matplotlib when available; falls back to a plain PIL
     rendering otherwise (matplotlib is deliberately not a runtime
-    dependency — pyproject lists jax/numpy/pillow/flax/optax only).
+    dependency — pyproject's "report" extra lists pillow only).
     """
     vals = np.asarray(signal, np.float64)[np.asarray(mask) > 0]
     if vals.size == 0:
@@ -120,7 +120,7 @@ def _render_mpl(path, counts, centers, hist_edges, colors, edges, xmax,
 def _render_pil(path, counts, hist_edges, colors, edges, xmax, head,
                 percentile):
     """Matplotlib-free rendering: same bars, dashed bin edges, and labels
-    on a white canvas via PIL (a hard dependency)."""
+    on a white canvas via PIL (the "report" extra)."""
     from PIL import Image, ImageDraw
 
     W, H = 936, 546
